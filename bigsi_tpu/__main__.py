@@ -75,12 +75,16 @@ def search_bigsi(bigsi, seq, threshold, score):
 
 
 def _add_config_arg(p):
-    p.add_argument("--config", "-c", default=None, help="YAML config file")
+    p.add_argument(
+        "--config", "-c", default=None,
+        help="config file: .json, or YAML (needs PyYAML)",
+    )
 
 
 def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="bigsi-tpu", description="TPU-native BIGSI genomic signature index"
+        prog="bigsi-tpu",
+        description="BIGSI genomic signature index on a JAX accelerator",
     )
     parser.add_argument("--version", action="version", version=__version__)
     sub = parser.add_subparsers(dest="command", required=True)
@@ -278,8 +282,11 @@ def run(args) -> str | None:
 
 
 def main(argv=None) -> None:
+    from bigsi_tpu.utils.devices import enable_compile_cache
+
     logging.basicConfig(level=logging.INFO)
     args = make_parser().parse_args(argv)
+    enable_compile_cache()
     out = run(args)
     if out is not None:
         print(out)

@@ -1,19 +1,20 @@
 """Config loading + validation.
 
 Reference: YAML file path from CLI arg or ``BIGSI_CONFIG`` env, else
-defaults (``bigsi/__main__.py:86-94``).  Schema is a superset of the
-reference's: ``k``, ``m``, ``h``, ``nproc``, ``storage-engine``,
-``storage-config``, ``max_build_mem_bytes`` plus the TPU-native keys
-``engine`` ("numpy" | "tpu") and ``mesh`` (device-mesh axis sizes for
-sharded query, see bigsi_tpu.parallel).  Unlike the reference (which
-KeyErrors at point of use), configs are validated up front.
+defaults (``bigsi/__main__.py:86-94``).  A ``.json`` file is read with
+the stdlib; any other file needs PyYAML, imported only then.  Schema is
+a superset of the reference's: ``k``, ``m``, ``h``, ``nproc``,
+``storage-engine``, ``storage-config``, ``max_build_mem_bytes`` plus
+``engine`` ("numpy" | "device" | "mesh" | "distributed") and ``mesh``
+(device-mesh axis sizes for sharded query, see bigsi_tpu.parallel).
+Unlike the reference (which KeyErrors at point of use), configs are
+validated up front.
 """
 
 from __future__ import annotations
 
+import json
 import os
-
-import yaml
 
 from bigsi_tpu.constants import DEFAULT_CONFIG
 
@@ -24,7 +25,15 @@ from bigsi_tpu.hashing.scheme import (  # single source of truth
 )
 
 REQUIRED_KEYS = ("k", "m", "h")
-KNOWN_ENGINES = ("numpy", "tpu", "mesh", "distributed")
+KNOWN_ENGINES = ("numpy", "device", "mesh", "distributed")
+# older spellings that existing configs still use
+ENGINE_ALIASES = {"tpu": "device"}
+
+
+def engine_name(config: dict) -> str:
+    """The config's engine under its current name."""
+    engine = config.get("engine", "numpy")
+    return ENGINE_ALIASES.get(engine, engine)
 
 
 def get_config_from_file(config_file: str | None) -> dict:
@@ -34,7 +43,12 @@ def get_config_from_file(config_file: str | None) -> dict:
         else:
             return dict(DEFAULT_CONFIG)
     with open(config_file, "r") as infile:
-        config = yaml.safe_load(infile)
+        if config_file.endswith(".json"):
+            config = json.load(infile)
+        else:
+            import yaml
+
+            config = yaml.safe_load(infile)
     return validate_config(config)
 
 
@@ -44,7 +58,7 @@ def validate_config(config: dict) -> dict:
             raise ValueError("config missing required key %r" % key)
         if not isinstance(config[key], int) or config[key] <= 0:
             raise ValueError("config key %r must be a positive integer" % key)
-    engine = config.get("engine", "numpy")
+    engine = engine_name(config)
     if engine not in KNOWN_ENGINES:
         raise ValueError(
             "unknown engine %r (expected one of %s)" % (engine, list(KNOWN_ENGINES))

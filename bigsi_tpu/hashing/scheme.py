@@ -4,20 +4,19 @@
   h independent murmur3 hashes mod m.  Rows land anywhere in [0, m), so
   a query k-mer costs h random row fetches.
 
-* ``blocked`` — TPU-native blocked-Bloom layout: the first hash picks a
+* ``blocked`` — blocked-Bloom layout: the first hash picks a
   *tile* of ``TILE_ROWS`` consecutive rows; the h row hashes land
-  inside that tile.  A query k-mer then costs ONE tile fetch (the tile
-  maps to whole 128-lane fat rows in HBM), cutting random-access issue
-  count by h and making every fetch lane-aligned.  The standard
+  inside that tile.  A query k-mer then costs ONE tile fetch (one
+  contiguous block of device memory), cutting the random-fetch count
+  by h.  The standard
   blocked-Bloom trade-off applies: slightly higher false-positive rate
   at equal m/h (same order; see Putze, Sanders & Singler 2009).
 
 * ``minimizer`` — blocked layout with the tile chosen by the k-mer's
   strand-invariant *minimizer* instead of a uniform hash.  Consecutive
   query k-mers usually share their minimizer, so their tiles come in
-  runs of ~6: the device kernel fetches each distinct tile once per
-  run, cutting the (issue-rate-bound) HBM fetch count another ~6x
-  below ``blocked``.
+  runs of ~6: the device program fetches each distinct tile once per
+  run, cutting the random-fetch count another ~6x below ``blocked``.
 
 FPR, MEASURED on SEQUENCE genomes — sliding-window k-mers, the real
 data model (scripts/fpr_calibration.py --genome sequence, m=2e6,
@@ -102,8 +101,8 @@ for _a, _b in zip(b"ACGT", b"TGCA"):
 # ``tile_rows`` is a build-time index parameter (config "tile-rows",
 # persisted in the manifest).  Smaller tiles cost FPR (a sample's block
 # is tile_rows bits) but speed queries: 16-row tiles halve both the
-# gathered bytes and the presence-expansion work — measured 2.8x end to
-# end on chip at equal m (scripts/probe_expansion.py v1 vs v3).
+# gathered bytes and the presence-expansion work (the end-to-end gain
+# was measured on the earlier accelerator, not on the H100).
 # Measured m premiums for BACKGROUND-FPR parity with classic (round 3,
 # superseding round 2's mislabeled "1.5x/2.0x"): minimizer/32 ~4x,
 # minimizer/16 ~6x — and near-miss parity is NOT reachable by growing m
@@ -297,16 +296,16 @@ def slot_hashes_v2(kmers: np.ndarray, h: int, tile_rows: int) -> np.ndarray:
 
 
 def default_run_len(window: int | None) -> int:
-    """Grouped-stream run bucket r for a minimizer window, from the
-    on-chip probe table (docs/ROADMAP.md):
+    """Grouped-stream run bucket r for a minimizer window (chosen from
+    measurements on the earlier accelerator; not re-measured on the
+    H100, ROADMAP S5):
 
     * long windows (w >= 15): r = w + 1 holds ANY single-occurrence
       minimizer run in one grouped entry (an s-mer occurrence sits in
-      the window of at most w consecutive k-mers) — w=19 r=20 measured
-      956 Mrows/s vs r=10 -> 727.
+      the window of at most w consecutive k-mers), so fewer entries.
     * short windows (w <= 13): runs are short and spills cheap, while
-      padding-slot compare waste scales with U*r — w=11 r=6 measured
-      411-460 Mrows/s vs r=12 -> 365, so the SMALL bucket wins there.
+      padding-slot compare waste scales with U*r, so the SMALL bucket
+      won there.
 
     r is a query-time bucketing parameter — any value is CORRECT
     (longer runs spill into fresh entries) — but it is persisted in the

@@ -2,7 +2,7 @@
 
 The reference scales query serving with a multiprocessing pool per bulk
 request (``bigsi/__main__.py:276-283``) and one-off searches hit the
-index individually.  On TPU the economics invert: one batched program
+index individually.  On an accelerator the economics invert: one batched program
 execution answers hundreds of queries for the price of one dispatch, so
 the HTTP layer funnels concurrent ``/search`` requests through this
 batcher: a lone request dispatches immediately (no linger floor);

@@ -355,10 +355,16 @@ def make_server(config, host="0.0.0.0", port=8000) -> BigsiHTTPServer:
 
 
 def serve(config, host="0.0.0.0", port=8000, distributed=False) -> None:
+    from bigsi_tpu.utils.devices import device_summary, enable_compile_cache
+
+    enable_compile_cache()
     if distributed:
         return serve_distributed(config, host, port)
     server = make_server(config, host, port)
-    logger.info("bigsi-tpu serving on %s:%d", host, port)
+    logger.info(
+        "bigsi-tpu serving on %s:%d; JAX devices: %s",
+        host, port, device_summary(),
+    )
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -371,8 +377,8 @@ def serve_distributed(config, host="0.0.0.0", port=8000) -> None:
     same query programs in lockstep (``run_worker_loop``).
 
     Coordinator/process identity come from ``BIGSI_TPU_COORDINATOR`` /
-    ``BIGSI_TPU_NUM_PROCESSES`` / ``BIGSI_TPU_PROCESS_ID`` (or TPU pod
-    metadata when launched on real multi-host hardware).  Serving is
+    ``BIGSI_TPU_NUM_PROCESSES`` / ``BIGSI_TPU_PROCESS_ID`` (or the
+    cluster metadata JAX detects).  Serving is
     read-only: mutating routes 403 — rebuild/merge offline, then restart
     the fleet (the reference's shared-Redis deployments are operated the
     same way, ``bigsi/storage/redis.py:8-15``).
@@ -398,8 +404,12 @@ def serve_distributed(config, host="0.0.0.0", port=8000) -> None:
         server._bigsi = graph  # pre-built handle (engine is collective)
         server.read_only = True
         logger.info(
-            "bigsi-tpu distributed serving on %s:%d (%d processes)",
+            "bigsi-tpu distributed serving on %s:%d (%d processes); "
+            "local devices: %s %s x%d",
             host, port, jax.process_count(),
+            jax.local_devices()[0].platform,
+            jax.local_devices()[0].device_kind,
+            len(jax.local_devices()),
         )
         try:
             server.serve_forever()

@@ -8,7 +8,7 @@ the bitslice matrix; merge = column concatenation.
 The data plane differs by design: instead of h x |kmers| KV row fetches
 (``index.py:72-73``), lookups are one vectorized hash of the whole
 k-mer batch followed by a fused gather/AND on the selected engine
-(numpy host oracle, or the TPU engine in
+(numpy host oracle, or the device engine in
 :mod:`bigsi_tpu.index.device_engine`).
 """
 

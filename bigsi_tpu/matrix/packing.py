@@ -7,12 +7,12 @@ Two layouts coexist:
   byte-identical to ``bitarray.tofile`` (``bigsi/cmds/bloom.py:26-27``),
   so reference ``.bloom`` files interoperate both ways.
 
-* **Matrix layout** (TPU-native): sample/colour bits of one bitslice row
+* **Matrix layout** (device-native): sample/colour bits of one bitslice row
   are packed LSB-first into little-endian ``uint32`` lanes: sample ``n``
   lives at word ``n >> 5``, bit ``n & 31``.  ``W = ceil(N/32)`` words
   per row; a whole index is ``uint32[m, W]``.  LSB-first makes
   unpacking on device a shift-and-mask with ``n = 32*w + b`` row-major
-  reshape, and 128-lane tiling wants the minor axis in words, not bytes.
+  reshape, and the vector units want the minor axis in words, not bytes.
 """
 
 from __future__ import annotations

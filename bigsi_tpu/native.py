@@ -2,13 +2,17 @@
 
 The library is optional: every entry point has a numpy implementation
 and callers go through :func:`available` / the accelerated wrappers
-which fall back transparently.  Build with ``make -C native`` (done
-automatically on first import if a compiler is present).
+which fall back transparently.  It is never committed: the first use on
+a host builds it from ``native/bigsi_native.cpp`` with ``make -C
+native`` (for that host's CPU), and rebuilds it whenever the source is
+newer.  Concurrent first uses (test workers, server processes) take a
+file lock, so one of them builds and the others load its result.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import logging
 import os
 import subprocess
@@ -54,11 +58,17 @@ def _load():
         return _lib
     _tried = True
     src = os.path.join(_NATIVE_DIR, "bigsi_native.cpp")
-    if os.path.exists(src) and (
-        not os.path.exists(_LIB_PATH)
-        or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)
-    ):
-        _build()
+
+    def stale():
+        return not os.path.exists(_LIB_PATH) or (
+            os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)
+        )
+
+    if os.path.exists(src) and stale():
+        with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if stale():  # another process may have built it meanwhile
+                _build()
     if os.path.exists(_LIB_PATH):
         try:
             lib = ctypes.CDLL(_LIB_PATH)

@@ -1,4 +1,4 @@
-"""On-device MurmurHash3_x86_32 (jnp/uint32): hash k-mers on the TPU.
+"""On-device MurmurHash3_x86_32 (jnp/uint32): hash k-mers on the device.
 
 Bit-exact with ``bigsi_tpu.hashing.murmur3`` (and therefore with the
 reference's ``mmh3.hash``, ``bigsi/bloom/bloomfilter.py:5-13``; golden
@@ -11,7 +11,7 @@ keeps the dispatch payload small and removes the host from the
 per-query critical path.  The whole query then runs as ONE program:
 hash -> row indices -> gather/AND -> counts.
 
-All ops are uint32 VPU arithmetic (multiplies, rotates, xors) over a
+All ops are uint32 vector arithmetic (multiplies, rotates, xors) over a
 ``[K, k]`` ASCII matrix; ``k`` is static at trace time so the per-word
 compression loop unrolls.
 """
@@ -78,10 +78,10 @@ def canonicalize_jax(kmers: jax.Array) -> jax.Array:
     Non-ACGT bytes map to themselves under complement.
 
     Gather-free on purpose: table lookups (``comp[kmers]``) and
-    take_along_axis lower to per-element XLA gathers that cost ~25x the
-    arithmetic on TPU (bench.py's full-pipeline detail caught this);
-    the complement is a select chain and the lexicographic compare a
-    static fold over the k byte positions.
+    take_along_axis lower to per-element XLA gathers, which cost far
+    more than the arithmetic on the earlier accelerator (not measured on
+    the H100); the complement is a select chain and the lexicographic
+    compare a static fold over the k byte positions.
     """
     def complement(b):
         out = b

@@ -8,9 +8,12 @@ The query pipeline over the packed bitslice matrix ``uint32[m, W]``:
 
 Replaces the reference's storage row fetches + bitarray ops
 (``bigsi/graph/index.py:72-80``, ``bigsi/graph/bigsi.py:35-56``).
-These are the XLA-fused reference kernels; the Pallas versions in
-:mod:`bigsi_tpu.ops.pallas_lookup` fuse the gather with the
-AND/popcount accumulation to avoid materializing ``[K*h, W]`` in HBM.
+Every program here is plain jnp/lax that XLA compiles for the device;
+there is no hand-written kernel.
+
+Several constants and formulations below were tuned on the accelerator
+this system was first built for.  They stay as they are; their effect
+on the H100 is not measured (ROADMAP S5).
 
 All shapes are static: callers bucket ``K`` (pad row indices with 0)
 and pass a validity mask.  Padding k-mers contribute the AND identity
@@ -100,7 +103,7 @@ def blocked_presence(
     The per-kmer AND over its h tile rows is computed WITHOUT selecting
     them: every non-selected row is replaced by the AND identity
     (all-ones) and the whole tile is AND-reduced.  That turns a
-    second (issue-rate-bound) gather into pure fused VPU work.
+    second gather into pure fused vector work.
     """
     k = tile_idx.shape[0]
     w = tiles.shape[1] // tile_rows
@@ -188,8 +191,8 @@ def csa_counts(rows: jax.Array, axis: int = -2) -> jax.Array:
 
     Reduces ``uint32[..., K, W]`` along ``K`` with a carry-save adder
     tree in bit-sliced form (each partial sum is a list of uint32
-    planes), then unpacks only the ~log2(K) result planes.  ~10x less
-    VPU work than the unpack-then-sum formulation of the reference's
+    planes), then unpacks only the ~log2(K) result planes.  ~10x fewer
+    vector operations than the unpack-then-sum formulation of the reference's
     ``unpack_and_sum`` (``bigsi/graph/bigsi.py:35-44``).
 
     Masking: zero out masked rows BEFORE calling (a zero row adds 0).
@@ -201,8 +204,8 @@ def csa_counts(rows: jax.Array, axis: int = -2) -> jax.Array:
 
 
 GROUP_R = 6  # k-mers per distinct tile in the grouped layout (runs ~6)
-# chip-tuned (scripts/microbench7.py, TPU v5e): R=6 + arithmetic mask
-# 210 Mrows/s vs R=8 + where 207 / R=12 179; unrolled AND tree 79.
+# chosen on the earlier accelerator over R=8 and R=12; not measured on
+# the H100.
 
 
 def build_grouped_streams(
@@ -219,7 +222,7 @@ def build_grouped_streams(
 
     With the minimizer layout (~6 consecutive k-mers share a tile) this
     cuts the issue-rate-bound device gather ~6x; the expansion back to
-    per-kmer presence happens as dense masked-AND VPU work.
+    per-kmer presence happens as dense masked-AND vector work.
 
     If ``slots`` (int[B, K, h] per-kmer tile-row indices) is given, a
     third array ``uslot int32[B, U, r, h]`` is returned with the same
@@ -300,9 +303,8 @@ def grouped_counts(
     The per-slot presence expansion is written as R SIBLING reduces over
     the one gathered input (not one broadcast [B, U, R, rows, W] reduce):
     XLA multi-output-fuses the siblings into a single pass that reads
-    the gathered tiles from HBM ONCE instead of once per slot — measured
-    1.43x end to end on chip (scripts/probe_expansion.py v0 vs v1,
-    2.17 -> 1.52 ms/step at B=256, K=512, RUN=6, tile_rows=32).
+    the gathered tiles from device memory ONCE instead of once per slot.
+    That won on the earlier accelerator; not measured on the H100.
     """
     b, u = utile.shape
     r = gmask.shape[2]
@@ -312,7 +314,7 @@ def grouped_counts(
     pres = []
     for j in range(r):
         # arithmetic masking (sel-1: 0 if selected, all-ones otherwise)
-        # beats bool-where by ~3% on chip (scripts/microbench.py)
+        # instead of a bool where
         sel = (gmask[:, :, j, None, None] >> rowbit) & jnp.uint32(1)
         masked = g | (sel - jnp.uint32(1))
         p = jax.lax.reduce(
@@ -430,20 +432,17 @@ def grouped_counts_cols(
     ONE compare per sample instead of a masked AND-reduce over
     tile_rows rows.  The whole step is a single fused XLA reduction
     over U (gather -> compare -> sum), so the gathered tiles stream
-    from HBM once and nothing per-slot materializes.  Padding slots
-    (gmask == 0) compare true everywhere; the fixed overcount
+    from device memory once and nothing per-slot materializes.  Padding
+    slots (gmask == 0) compare true everywhere; the fixed overcount
     ``U*R - n_valid`` is subtracted at the end.
 
     Bit-exact vs :func:`grouped_counts` on the same streams
-    (tests/test_layout.py); measured 2.8x faster on chip at the bench
-    config (0.289 vs 0.812 ms/step, B=256 K=512 RUN=8 tile_rows=16 —
-    scripts/probe_r3.py colssplit2_16r8): the csa tree and the per-slot
-    expansion passes disappear.  The U-sum runs as TWO independent
-    half-U reduction chains ("split2") — measured 1.6x over one chain
-    (XLA overlaps the two gather+compare+reduce pipelines) — and
-    accumulates in int16 when U*R < 2^15 (every per-query count is
-    bounded by U*R slots): measured 982 vs 769 Mrows/s at w=19/r=20
-    (probe_two 2026-08-20; half the VPU bytes per compare-sum pass).
+    (tests/test_layout.py): the csa tree and the per-slot expansion
+    passes disappear.  The U-sum runs as TWO independent half-U
+    reduction chains, and accumulates in int16 when U*R < 2^15 (every
+    per-query count is bounded by U*R slots, so int16 cannot overflow).
+    Both choices won on the earlier accelerator; neither is measured on
+    the H100 (ROADMAP S5).
     """
     b, u = utile.shape
     gm = gmask.astype(cols.dtype)

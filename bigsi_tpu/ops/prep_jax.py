@@ -4,11 +4,8 @@ Moves the ENTIRE minimizer serving prep (2-bit packing, strand
 canonicalization, splitmix64 s-mer ordering, window minima, tile +
 slot-mask derivation, distinct-kmer dedup, run grouping) onto the
 device, so one jitted program goes from padded query bytes straight to
-per-colour hit counts.  This kills the serving host bound of rounds
-2-3 (VERDICT r3 item 4): the fused native C prep costs 2.4-3.7 ms per
-[256, 512] batch on this 2-vCPU host vs 0.18 ms of device counting —
-13x host-bound.  Here the host's only job is padding bytes into a
-[B, L] uint8 array.
+per-colour hit counts.  This takes the host prep off the serving path:
+the host's only job is padding bytes into a [B, L] uint8 array.
 
 Semantics are EXACTLY slot scheme v3 (hashing/scheme.py: pack_codes_v3
 / splitmix64 / minimizer_tiles scheme=3 / slot_hashes_v3), including
@@ -18,17 +15,20 @@ the native C prep (tests/test_prep_jax.py).  ACGT-only input is the
 caller's contract, exactly as for native.prep_minimizer_v3_seqs (the
 facade falls back to the host path otherwise).
 
-TPU-first design notes:
+Design notes.  These were written for the accelerator this system was
+first built for, which has no uint64 and whose scatters serialize.
+They stay as written; whether each pays on the H100 (which has both
+64-bit integers and fast scatters) is not measured (ROADMAP S4):
 
-* uint64 does not exist on TPU; every 64-bit quantity is a (hi, lo)
-  uint32 pair.  The two splitmix64 multiplies are built from 16-bit
-  partial products (4 wrapping u32 muls each) — ~35 VPU ops per lane,
-  trivial against the [B, U, N] counting work downstream.
+* every 64-bit quantity is a (hi, lo) uint32 pair.  The two splitmix64
+  multiplies are built from 16-bit partial products (4 wrapping u32
+  muls each) — ~35 vector ops per element, small against the
+  [B, U, N] counting work downstream.
 * ``% num_tiles`` (num_tiles is a compile-time constant < 2^28) runs
   as an unrolled 16x4-bit long division in u32 — each step is a
   shift/or plus a constant-divisor u32 mod that XLA strength-reduces
   to a multiply.
-* Run grouping uses NO scatter (TPU scatters serialize): run starts
+* Run grouping uses NO scatter: run starts
   come from a cummax, entry ids from a cumsum, and the [B, U] /
   [B, U, r] stream tensors from one-hot compare-sums that XLA fuses
   into the reductions.  Duplicate k-mers KEEP their slot position with
@@ -375,8 +375,8 @@ def prep_streams_device(
     key = jnp.where(valid, entry * r + slot, jnp.int32(-1))  # [B, NK]
     x_iota = jnp.arange(u_cap * r, dtype=jnp.int32)
     # selection sums run at the narrowest width that holds a slot mask
-    # (uint16 halves the VPU bytes of the dominant pass when
-    # tile_rows <= 16)
+    # (uint16 halves the bytes of the dominant pass when tile_rows <=
+    # 16; chosen on the earlier accelerator, not measured on the H100)
     acc = jnp.uint16 if tile_rows <= 16 else U32
     utile = None
     gflat = None

@@ -4,17 +4,17 @@ host-0 assembly.
 The reference's multi-machine story is a shared Redis server that many
 stateless query processes hit over TCP (``bigsi/storage/redis.py:8-49``
 — the index lives in one place, clients bring queries to it).  The
-TPU-native inversion (SURVEY §5.8): the index column-shards across the
-HBM of every host's chips (one global ``samples`` axis), queries enter
-at host 0, broadcast to all hosts over DCN
+accelerator inversion (SURVEY §5.8): the index column-shards across the
+memory of every host's devices (one global ``samples`` axis), queries
+enter at host 0, broadcast to all hosts over the network
 (``multihost_utils.broadcast_one_to_all``), every host executes the
-same sharded query step (collectives ride ICI within a host, DCN
-across), and the replicated result is read off host 0.
+same sharded query step (collectives ride NVLink within a host, the
+network across), and the replicated result is read off host 0.
 
 Emulation without hardware: ``initialize()`` with a localhost
 coordinator + ``JAX_PLATFORMS=cpu`` + gloo collectives gives N
-processes x M virtual CPU devices — the exact code path multi-host TPU
-uses (tests/test_distributed.py runs 2x2).
+processes x M virtual CPU devices — the same code path a multi-host
+fleet runs (tests/test_distributed.py runs 2x2).
 
 Worker protocol (host 0 = frontend, others = workers running
 ``run_worker_loop``): each dispatch broadcasts a small int32 header
@@ -197,11 +197,10 @@ def _split_buffer(buf: np.ndarray, specs):
 def _bcast_arrays(arrays):
     """Host 0: broadcast several arrays as ONE uint8 buffer.
 
-    Each ``broadcast_one_to_all`` is a full collective round trip
-    (~3-5 ms on the gloo loopback emulation), so a dispatch that sent
-    header + index + mask as three legs paid the conversation cost
-    three times; coalescing the payload halves the measured
-    per-dispatch overhead (scripts/distributed_serving_bench.py).
+    Each ``broadcast_one_to_all`` is a full collective round trip, so a
+    dispatch that sent header + index + mask as three legs paid the
+    conversation cost three times; one coalesced payload pays it once
+    (scripts/distributed_serving_bench.py measures the dispatch).
     """
     from jax.experimental import multihost_utils
 
@@ -238,7 +237,10 @@ def initialize(
     Env: ``BIGSI_TPU_COORDINATOR``, ``BIGSI_TPU_NUM_PROCESSES``,
     ``BIGSI_TPU_PROCESS_ID``.  On the CPU backend the gloo collectives
     implementation is selected automatically (required for
-    cross-process CPU collectives).
+    cross-process CPU collectives).  Several processes on one host each
+    take their own local card (:func:`local_device_ids`): a JAX process
+    otherwise reserves most of EVERY card's memory at start, and the
+    second process on the host fails for want of it.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "BIGSI_TPU_COORDINATOR"
@@ -257,6 +259,9 @@ def initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids(
+            coordinator_address, num_processes, process_id
+        ),
     )
     logger.info(
         "distributed: process %d/%d, %d local / %d global devices",
@@ -265,6 +270,29 @@ def initialize(
         len(jax.local_devices()),
         len(jax.devices()),
     )
+
+
+def local_device_ids(coordinator_address, num_processes, process_id):
+    """The local card a process pins itself to, or None for all.
+
+    A loopback coordinator means every process runs on this host, so
+    process ``i`` takes card ``i``.  Other fleets (one process per host)
+    keep every local card.  ``JAX_LOCAL_DEVICE_IDS``, which JAX reads
+    itself, wins; so does the CPU backend, whose virtual devices are
+    not cards.
+    """
+    if os.environ.get("JAX_LOCAL_DEVICE_IDS"):
+        return None
+    if not num_processes or num_processes < 2 or process_id is None:
+        return None
+    from bigsi_tpu.utils.devices import cpu_requested
+
+    if cpu_requested():
+        return None
+    host = (coordinator_address or "").rsplit(":", 1)[0].strip("[]")
+    if host in ("localhost", "::1") or host.startswith("127."):
+        return [int(process_id)]
+    return None
 
 
 def make_global_mesh(axis_sizes=None):

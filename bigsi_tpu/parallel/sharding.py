@@ -224,6 +224,33 @@ def shard_cols(cols: np.ndarray, mesh: Mesh) -> jax.Array:
     return jax.device_put(cols, NamedSharding(mesh, P(None, AXIS_SAMPLES)))
 
 
+def pack_cols_sharded(words: jax.Array, mesh: Mesh, tile_rows: int):
+    """Sample-sharded cols layout derived ON the devices.
+
+    ``words`` is the row-major matrix sharded by :func:`shard_matrix`
+    (word axis over ``s``).  A device's words hold exactly its samples'
+    bits, so each packs its own tile columns (ops/lookup.py:
+    pack_tile_cols) and nothing crosses devices.  The result is
+    ``shard_cols(pack_tile_cols_host(...))`` without the host pass, which
+    at a deployment's size is tens of GB of numpy bit shuffling.
+    """
+    from bigsi_tpu.ops.lookup import pack_tile_cols
+
+    def local(w):
+        m, wl = w.shape
+        t = -(-m // tile_rows)
+        if t * tile_rows != m:
+            w = jnp.pad(w, ((0, t * tile_rows - m), (0, 0)))
+        return pack_tile_cols(w.reshape(t, tile_rows * wl), tile_rows)
+
+    return jax.jit(
+        jax.shard_map(
+            local, mesh=mesh, in_specs=P(None, AXIS_SAMPLES),
+            out_specs=P(None, AXIS_SAMPLES), check_vma=False,
+        )
+    )(words)
+
+
 def make_sharded_cols_step(mesh: Mesh):
     """Multi-chip column-major (cols) minimizer counts — the fastest
     single-chip formulation (ops/lookup.py:grouped_counts_cols), sample
@@ -423,6 +450,9 @@ class MeshEngine:
         minimizer_window: int | None = None, run_len: int | None = None,
         slot_scheme: int = 1,
     ):
+        from bigsi_tpu.utils.devices import default_device
+
+        default_device()  # refuses a CPU nobody asked for
         self.matrix = matrix
         self.mesh = mesh or make_mesh()
         self.layout = layout
@@ -491,26 +521,24 @@ class MeshEngine:
         return self._grouped_step, self._tiles3, self._grouped_db
 
     def _cols_setup(self):
-        """Lazy sharded cols layout (the fastest minimizer formulation,
-        single-chip-measured 2.8x over row-major grouped): sample axis
-        sharded over ``s``, one compare per LOCAL sample per slot.
-        Used when the mesh has no row shards and tile_rows fits a
-        machine word; row-sharded indexes keep the grouped path."""
+        """Lazy sharded cols layout: sample axis sharded over ``s``, one
+        compare per LOCAL sample per slot.  Used when the mesh has no
+        row shards and tile_rows fits a machine word; row-sharded
+        indexes keep the grouped path.  Each device packs its own
+        columns from its shard of the row-major words
+        (:func:`pack_cols_sharded`)."""
         if self._cols_step is None:
-            from bigsi_tpu.ops.lookup import pack_tile_cols_host
-
             d, k, s = (
                 self.mesh.shape[AXIS_BATCH],
                 self.mesh.shape[AXIS_KMERS],
                 self.mesh.shape[AXIS_SAMPLES],
             )
-            mesh = (
-                self.mesh if k == 1 else make_mesh(d * k * s, (d * k, 1, s))
-            )
-            cols = pack_tile_cols_host(
-                np.asarray(self.matrix.words), self.tile_rows
-            )
-            self._cols = shard_cols(cols, mesh)
+            if k == 1:
+                mesh, words = self.mesh, self.words
+            else:
+                mesh = make_mesh(d * k * s, (d * k, 1, s))
+                words = shard_matrix(np.asarray(self.matrix.words), mesh)
+            self._cols = pack_cols_sharded(words, mesh, self.tile_rows)
             self._cols_step = make_sharded_cols_step(mesh)
             self._cols_db = mesh.shape[AXIS_BATCH]
         return self._cols_step, self._cols, self._cols_db

@@ -1,6 +1,6 @@
 // bigsi-tpu native host runtime: the build-path data plane.
 //
-// TPU-native equivalents of the reference's native substrate
+// Host-side equivalents of the reference's native substrate
 // (SURVEY.md §2.2): mmh3's MurmurHash3_x86_32 (bigsi/bloom/
 // bloomfilter.py:5-13 binds the C++ mmh3 wheel), bitarray's packed-bit
 // ops, and the numpy transpose (bigsi/matrix/transpose.py:33-43).
@@ -710,8 +710,7 @@ int64_t prep_minimizer_v3_seqs(const uint8_t* seqs, const int64_t* sstart,
   const uint64_t kmask = (k == 32) ? ~0ull : ((1ull << (2 * k)) - 1);
   const uint64_t smask_code = (1ull << (2 * s)) - 1;
   // NOTE: plain hardware '%' here — a reciprocal-multiply FastMod was
-  // measured SLOWER on this host (scripts/microexp/prep_variants.cpp:
-  // 2.25 vs 1.83 ms/batch without dedup); the div pipelines behind the
+  // slower on the host it was tried on; the div pipelines behind the
   // loop's other work.  tile_rows is a power of two in practice and the
   // compiler keeps the u32 mod cheap.
   if (nthreads < 1) nthreads = 1;

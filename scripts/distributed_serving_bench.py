@@ -1,21 +1,20 @@
-"""Emulated distributed-serving saturation benchmark (VERDICT r3 item 8).
+"""Emulated distributed-serving saturation benchmark.
 
 Drives the production distributed query path (DistributedEngine over a
-jax.distributed gloo mesh, the same code a TPU pod runs) at saturation
+jax.distributed gloo mesh, the same code a multi-host fleet runs) at saturation
 from host 0 and records queries/s at 1, 2 and 4 processes, plus a
 WEAK-SCALING efficiency figure: each process holds an equal column
 shard (samples scale with the fleet), so perfect scaling keeps
 queries/s flat while total indexed samples grow linearly.
 
 EMULATION CAVEATS (read before quoting the numbers): processes run on
-ONE 2-vCPU host, collectives go through the gloo CPU backend (measured
-~16 ms/dispatch floor, docs/SCALE.md), and "devices" are virtual CPU
-devices — so the absolute qps is meaningless and the efficiency figure
-is a LOWER BOUND methodology anchor: on real multi-host TPU the
-per-dispatch overhead rides ICI/DCN collectives instead of loopback
-gloo while the per-shard compute runs on chips.  The BASELINE >= 0.8
-scaling-efficiency target needs real hardware; this script pins the
-measurement method and the emulated floor.
+ONE host, collectives go through the gloo CPU backend, and "devices"
+are virtual CPU devices — so the absolute qps is meaningless and the
+efficiency figure is a LOWER BOUND methodology anchor: on a fleet of
+cards the per-dispatch overhead rides NVLink or network collectives
+instead of loopback gloo while the per-shard compute runs on the cards.
+The BASELINE >= 0.8 scaling-efficiency target needs real hardware; this
+script pins the measurement method.
 
 Run: python scripts/distributed_serving_bench.py [--batches 12]
 Writes a JSON summary line; record results in docs/SCALE.md.

@@ -5,10 +5,9 @@ Runs the shard_map'd batched query step over meshes of 1, 2, 4, ... N
 devices (sample-sharded by default) against one synthetic matrix and
 reports queries/s plus efficiency vs linear scaling from 1 device.
 
-On the CPU backend (default under tests) this validates the sharding
-machinery end to end with 8 virtual devices; on real multi-chip
-hardware the same script is the BASELINE scaling-efficiency
-measurement (target >= 0.8 at 2+ hosts).
+It runs on JAX's default backend (the GPUs); ``--cpu`` uses the CPU
+backend with 8 virtual devices instead, which validates the sharding
+machinery end to end but measures nothing about a card.
 
   python scripts/scaling_report.py [--m 500000] [--samples 8192]
       [--batch 32] [--kmers 256] [--axis s|d|k] [--steps 5]
@@ -41,7 +40,7 @@ def main():
                     help="force the CPU backend with 8 virtual devices")
     args = ap.parse_args()
 
-    if args.cpu or not os.environ.get("BIGSI_TPU_REAL_DEVICE"):
+    if args.cpu:
         flags = os.environ.get("XLA_FLAGS", "")
         if "xla_force_host_platform_device_count" not in flags:
             os.environ["XLA_FLAGS"] = (

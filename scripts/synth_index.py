@@ -3,21 +3,17 @@
 
 Builds an on-disk bigsi-tpu index (manifest + rows.bin) with N samples
 and m bloom bits WITHOUT materializing per-sample blooms: bitslice rows
-are drawn directly at the Bloom-filter load factor
-
-    p = 1 - (1 - 1/m)^(h * n_kmers)  ~=  1 - exp(-h * n_kmers / m)
-
-which is the bit density a real build at those parameters converges to
-(``scripts/bigsi-param-calculation.R`` in the reference).  A handful of
-*planted* samples get real blooms from known sequences so queries have
-ground truth to hit.
+are drawn at the Bloom-filter load factor (see bigsi_tpu/synth.py), and
+a handful of *planted* samples carry the real blooms of known random
+genomes so queries have ground truth to hit.
 
 Usage:
   python scripts/synth_index.py OUTDIR --samples 1024 --m 25000000 \
-      [--h 3] [--kmers-per-sample 4000000] [--planted 4] [--layout classic]
+      [--h 3] [--kmers-per-sample 3900000] [--planted 4] \
+      [--layout classic] [--seed 0]
 
 Writes OUTDIR/{manifest.json,rows.bin} plus OUTDIR/planted.json with
-the planted sample names and their query sequences.
+the planted sample names and their genomes.
 """
 
 import argparse
@@ -29,19 +25,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from bigsi_tpu.bloom import BloomFilter
-from bigsi_tpu.graph.metadata import SampleMetadata
-from bigsi_tpu.kmers import convert_query_kmers, seq_to_kmers
-from bigsi_tpu.matrix.bitmatrix import BitSliceMatrix
-from bigsi_tpu.storage import get_storage
-from bigsi_tpu.index.signature import (
-    BLOOMFILTER_SIZE_KEY,
-    LAYOUT_KEY,
-    NUM_HASH_FUNCTS_KEY,
-)
-from bigsi_tpu.utils.profiling import phase
+from bigsi_tpu.synth import random_genome, write_index  # noqa: E402
 
-CHUNK_ROWS = 1 << 18  # rows generated per block (memory cap)
+PLANTED_GENOME_LENGTH = 2000  # bp; room for gene-length query windows
 
 
 def main():
@@ -51,68 +37,30 @@ def main():
     ap.add_argument("--m", type=int, default=25_000_000)
     ap.add_argument("--h", type=int, default=3)
     ap.add_argument("--k", type=int, default=31)
-    ap.add_argument("--kmers-per-sample", type=int, default=4_000_000)
+    ap.add_argument("--kmers-per-sample", type=int, default=3_900_000)
     ap.add_argument("--planted", type=int, default=4)
     ap.add_argument("--layout", default="classic",
                     choices=["classic", "blocked", "minimizer"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    n, m, h = args.samples, args.m, args.h
-    w = (n + 31) // 32
     density = 1.0 - np.exp(-args.h * args.kmers_per_sample / args.m)
-    print("samples=%d m=%d h=%d -> %d words/row, bit density %.3f"
-          % (n, m, h, w, density), file=sys.stderr)
-
     rng = np.random.default_rng(args.seed)
+    planted = {
+        "planted%d" % i: random_genome(rng, PLANTED_GENOME_LENGTH)
+        for i in range(min(args.planted, args.samples))
+    }
     config = {
         "storage-engine": "bigsi-tpu",
         "storage-config": {"filename": args.outdir},
-        "k": args.k, "m": m, "h": h, "layout": args.layout,
+        "k": args.k, "m": args.m, "h": args.h, "layout": args.layout,
     }
-    storage = get_storage(config)
-    storage.delete_all()
-
-    # planted samples: real blooms from known random sequences
-    planted = {}
-    planted_cols = []
-    for i in range(min(args.planted, n)):
-        seq = "".join(rng.choice(list("ACGT"), size=200))
-        bf = BloomFilter(m=m, h=h, layout=args.layout)
-        bf.update(convert_query_kmers(seq_to_kmers(seq, args.k)))
-        planted["planted%d" % i] = seq
-        planted_cols.append(np.asarray(bf.bitarray))
-
-    with phase("synth.rows", log_level=20):
-        # stream random rows straight into the on-disk layout
-        rows_path = os.path.join(args.outdir, "rows.bin")
-        os.makedirs(args.outdir, exist_ok=True)
-        with open(rows_path, "wb") as f:
-            # per-word threshold sampling: each sample bit ~Bernoulli(density)
-            for r0 in range(0, m, CHUNK_ROWS):
-                rows = min(CHUNK_ROWS, m - r0)
-                bits = rng.random((rows, w * 32)) < density
-                for c, col in enumerate(planted_cols):
-                    bits[:, c] = col[r0:r0 + rows]
-                if n % 32:
-                    bits[:, n:] = False  # phantom lane-padding samples
-                packed = np.packbits(bits, axis=1, bitorder="little")
-                packed.view(np.uint32).tofile(f)
-
-    # register the streamed rows.bin + metadata without re-writing it
-    storage.kv.set_integer(BLOOMFILTER_SIZE_KEY, m)
-    storage.kv.set_integer(NUM_HASH_FUNCTS_KEY, h)
-    storage.kv.set_string(LAYOUT_KEY, args.layout)
-    names = list(planted) + ["synth%d" % i for i in range(len(planted), n)]
-    SampleMetadata(storage.kv).add_samples(names)
-    storage.adopt_rows(num_rows=m, num_words=w, num_cols=n)
-    storage.close()
-
+    summary = write_index(
+        config, args.samples, planted, seed=args.seed, density=density
+    )
     with open(os.path.join(args.outdir, "planted.json"), "w") as f:
         json.dump(planted, f, indent=2)
-    print(json.dumps({"outdir": args.outdir, "samples": n, "m": m, "h": h,
-                      "words_per_row": w, "density": round(float(density), 4),
-                      "planted": len(planted)}))
+    print(json.dumps(summary))
 
 
 if __name__ == "__main__":

@@ -20,10 +20,12 @@ class BuildWithNative(build_py):
 setup(
     name="bigsi-tpu",
     version="0.1.0",
-    description="TPU-native BItsliced Genomic Signature Index (BIGSI)",
+    description="BItsliced Genomic Signature Index (BIGSI) on JAX accelerators",
     packages=find_packages(exclude=["tests"]),
     python_requires=">=3.10",
-    install_requires=["numpy", "jax", "pyyaml"],
+    install_requires=["numpy", "jax"],
+    # YAML configs; .json configs need nothing beyond the stdlib
+    extras_require={"yaml": ["pyyaml"]},
     entry_points={"console_scripts": ["bigsi-tpu = bigsi_tpu.__main__:main"]},
     cmdclass={"build_py": BuildWithNative},
     license="MIT",

@@ -7,7 +7,7 @@ Each process (host) runs this symmetric program:
     workers run the lockstep loop.
 
 Invoked by tests/test_distributed.py; also a usage model for real
-multi-host deployment (swap the CPU emulation env for TPU hosts).
+multi-host deployment (swap the CPU emulation env for GPU hosts).
 """
 
 import json

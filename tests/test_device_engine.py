@@ -1,7 +1,7 @@
 """Device (jnp) engine parity vs the host numpy oracle.
 
 Runs on the CPU backend (8 virtual devices, tests/conftest.py); the
-same code path compiles for TPU.
+same code path compiles for the GPU.
 """
 
 import numpy as np
@@ -56,14 +56,14 @@ def test_bucket_size():
     assert bucket_size(1000) == 1024
 
 
-def test_end_to_end_search_with_tpu_engine():
+def test_end_to_end_search_with_device_engine():
     cfg = {
         "storage-engine": "memory",
         "storage-config": {"filename": "dev-e2e"},
         "k": 3,
         "m": 1000,
         "h": 3,
-        "engine": "tpu",
+        "engine": "device",
     }
     get_storage(cfg).delete_all()
     kmers_1 = seq_to_kmers("ATACACAAT", 3)
@@ -208,45 +208,3 @@ def test_grouped_counts_matches_blocked():
         blocked_counts(jnp.asarray(tiles), jnp.asarray(tile), jnp.asarray(smask), jnp.asarray(smask != 0))
     )
     assert np.array_equal(got, want)
-
-
-def test_fused_kernel_env_gate(monkeypatch):
-    """The fused Pallas path is OPT-IN via BIGSI_TPU_FUSED_KERNEL=1 and
-    gated to minimizer / tile_rows=32 / W=32 / real accelerator
-    (VERDICT r1 weak #4: the dispatch itself was untested)."""
-    import numpy as np
-
-    from bigsi_tpu.index.device_engine import DeviceEngine
-    from bigsi_tpu.matrix.bitmatrix import BitSliceMatrix
-
-    words = np.zeros((1024, 32), dtype=np.uint32)  # m=1024, W=32
-    # the fused kernel needs the row-major tiles, which a cols engine
-    # drops at init — so the flag must be set BEFORE construction
-    monkeypatch.setenv("BIGSI_TPU_FUSED_KERNEL", "1")
-    matrix = BitSliceMatrix(words, num_cols=1024)
-    eng = DeviceEngine(matrix, layout="minimizer", tile_rows=32)
-    assert eng.words is not None and eng.cols is None
-
-    class FakeDev:
-        platform = "tpu"
-
-    # off without the env flag, even if every other condition holds
-    monkeypatch.delenv("BIGSI_TPU_FUSED_KERNEL", raising=False)
-    monkeypatch.setattr(eng, "device", FakeDev())
-    assert not eng._use_fused()
-
-    # on with the flag on a non-cpu device at the supported shape
-    monkeypatch.setenv("BIGSI_TPU_FUSED_KERNEL", "1")
-    assert eng._use_fused()
-
-    # never on the cpu backend (interpret-mode perf trap)
-    class CpuDev:
-        platform = "cpu"
-
-    monkeypatch.setattr(eng, "device", CpuDev())
-    assert not eng._use_fused()
-
-    # never for unsupported layout/tile shape
-    monkeypatch.setattr(eng, "device", FakeDev())
-    monkeypatch.setattr(eng, "layout", "blocked")
-    assert not eng._use_fused()

@@ -4,7 +4,7 @@ Emulates SURVEY §5.8's multi-host story without hardware:
 ``jax.distributed.initialize`` against a localhost coordinator, the
 sample axis of the mesh spanning "hosts", query broadcast from host 0
 (``broadcast_one_to_all``), lockstep worker execution, host-0 result
-assembly — the same code path a TPU pod deployment takes.  Results are
+assembly — the same code path a multi-host deployment takes.  Results are
 checked against a single-process numpy oracle.
 """
 

@@ -1,6 +1,6 @@
 """Blocked Bloom layout: hashing scheme + end-to-end behaviour.
 
-``layout: blocked`` is a TPU-native extension (no reference
+``layout: blocked`` is an extension of this rebuild (no reference
 counterpart): the first hash picks a TILE_ROWS-row tile, the h row
 hashes land inside it, so a query k-mer costs one tile fetch instead of
 h scattered row fetches.  Correctness contract: anything inserted is
@@ -81,7 +81,7 @@ def test_bloom_filter_blocked_add_matches_update():
     np.testing.assert_array_equal(a.array, b.array)
 
 
-@pytest.mark.parametrize("engine", ["numpy", "tpu"])
+@pytest.mark.parametrize("engine", ["numpy", "device"])
 def test_end_to_end_blocked(engine):
     cfg = {**config(), "engine": engine}
     blooms = [
@@ -169,7 +169,7 @@ def test_minimizer_consecutive_kmers_share_tiles():
     assert runs < len(tiles) / 3
 
 
-@pytest.mark.parametrize("engine", ["numpy", "tpu"])
+@pytest.mark.parametrize("engine", ["numpy", "device"])
 def test_end_to_end_minimizer(engine):
     from bigsi_tpu.hashing.scheme import MINIMIZER
 
@@ -301,7 +301,7 @@ def test_pack_tile_cols_bit_layout():
     assert cols[0, 1:37].sum() == 0 and cols[0, 38:].sum() == 0
 
 
-@pytest.mark.parametrize("engine", ["numpy", "tpu"])
+@pytest.mark.parametrize("engine", ["numpy", "device"])
 def test_end_to_end_tile_rows_16(engine):
     from bigsi_tpu.hashing.scheme import MINIMIZER
 
@@ -430,7 +430,7 @@ def test_headline_w19_end_to_end(tmp_path):
     expect_inexact = idx.search_batch(queries, threshold=0.7)
     for i, q in enumerate(queries):
         assert any(r["percent_kmers_found"] == 100.0 for r in expect_exact[i])
-    dev = BIGSI(dict(cfg, engine="tpu"))
+    dev = BIGSI(dict(cfg, engine="device"))
     assert dev.engine.run_len == 20  # dispatches the benched shape
     assert dev.engine.supports_kmer_batch()
     assert [dev.search(q) for q in queries] == expect_exact

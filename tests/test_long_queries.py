@@ -32,7 +32,7 @@ def _mk(tmp_path, engine, layout_extra):
 
 def test_10kb_query_minimizer_device_engine(tmp_path):
     extra = {"layout": "minimizer", "tile-rows": 16, "minimizer-window": 19}
-    dev, genomes = _mk(tmp_path, "tpu", extra)
+    dev, genomes = _mk(tmp_path, "device", extra)
     host, _ = _mk(tmp_path, "numpy", extra)
     q = genomes[0][500:10_500]  # 10 kb: past the seq-path NK ceiling
     assert dev.search(q, threshold=0.9) == host.search(q, threshold=0.9)
@@ -44,7 +44,7 @@ def test_10kb_query_minimizer_device_engine(tmp_path):
 
 
 def test_10kb_query_classic_engine(tmp_path):
-    dev, genomes = _mk(tmp_path, "tpu", {})
+    dev, genomes = _mk(tmp_path, "device", {})
     host, _ = _mk(tmp_path, "numpy", {})
     q = genomes[2][:10_031]
     assert dev.search(q, 1.0) == host.search(q, 1.0)
@@ -63,7 +63,7 @@ def test_10kb_query_over_http_post(tmp_path):
     from bigsi_tpu.http.server import make_server
 
     extra = {"layout": "minimizer", "tile-rows": 16, "minimizer-window": 19}
-    idx, genomes = _mk(tmp_path, "tpu", extra)
+    idx, genomes = _mk(tmp_path, "device", extra)
     server = make_server(dict(idx.config), host="127.0.0.1", port=0)
     port = server.server_address[1]
     threading.Thread(target=server.serve_forever, daemon=True).start()
@@ -88,7 +88,7 @@ def test_mixed_length_batch_splits_stragglers(tmp_path, monkeypatch):
     host path by the straggler's geometry), results identical to the
     host oracle."""
     extra = {"layout": "minimizer", "tile-rows": 16, "minimizer-window": 19}
-    dev, genomes = _mk(tmp_path, "tpu", extra)
+    dev, genomes = _mk(tmp_path, "device", extra)
     host, _ = _mk(tmp_path, "numpy", extra)
     queries = [genomes[i % 3][j * 97 : j * 97 + 300] for i, j in
                enumerate([(x % 20) for x in range(12)])]
@@ -113,7 +113,7 @@ def test_mixed_length_batch_all_paths_and_score(tmp_path):
     """The top-level length bucketing must preserve result parity on
     every dispatch path — classic engine, scoring on, exact and
     inexact thresholds — for a batch mixing 300 b and 10 kb queries."""
-    dev, genomes = _mk(tmp_path, "tpu", {})
+    dev, genomes = _mk(tmp_path, "device", {})
     host, _ = _mk(tmp_path, "numpy", {})
     queries = [genomes[i % 3][60:360] for i in range(10)]
     queries.insert(3, genomes[1][:10_000])

@@ -277,7 +277,7 @@ def test_fused_serving_path_is_active_and_exact(tmp_path):
     queries = [s[10:100] for s in seqs] + [seqs[0][5:40]]
     expect = host.search_batch(queries, threshold=0.6)
 
-    dev = BIGSI(dict(config, engine="tpu"))
+    dev = BIGSI(dict(config, engine="device"))
     assert dev.engine.supports_kmer_batch()
     # round 4 added the all-on-device seq path, which supersedes the
     # fused host prep when available — disable it here so this test

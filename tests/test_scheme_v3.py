@@ -188,7 +188,7 @@ def test_v3_end_to_end_with_n_bases(tmp_path):
     query = seq_n[40:90]  # every k-mer overlaps the N
     res = host.search(query, 1.0)
     assert {r["sample_name"] for r in res} >= {"with_n"}
-    dev = BIGSI(dict(config, engine="tpu"))
+    dev = BIGSI(dict(config, engine="device"))
     assert dev.search(query, 1.0) == res
     assert dev.search_batch([query], threshold=1.0) == host.search_batch(
         [query], threshold=1.0
@@ -223,7 +223,7 @@ def test_v3_end_to_end_and_engine_parity(tmp_path):
     assert host.slot_scheme == SLOT_SCHEME_V3  # the new default
     queries = [s[10:100] for s in seqs] + [seqs[0][5:40]]
     expect = host.search_batch(queries, threshold=0.6)
-    dev = BIGSI(dict(config, engine="tpu"))
+    dev = BIGSI(dict(config, engine="device"))
     assert dev.engine.supports_kmer_batch()
     assert dev.search_batch(queries, threshold=0.6) == expect
     assert [dev.search(q, 1.0) for q in queries] == [

@@ -3,9 +3,7 @@
 Covers every engine x layout combination the dispatcher can pick on
 CPU (host numpy, device classic/blocked/minimizer), exact + inexact
 thresholds, padding (ragged query lengths), empty/short queries, and
-deleted-sample filtering.  The fused Pallas minimizer path is covered
-separately in tests/test_pallas_lookup.py (interpret mode) and on-chip
-by bench.py.
+deleted-sample filtering.
 """
 
 import numpy as np
@@ -34,12 +32,12 @@ def random_seq(rng, n):
 @pytest.fixture(autouse=True)
 def clean():
     for layout in ("classic", "blocked", "minimizer"):
-        for engine in ("numpy", "tpu"):
+        for engine in ("numpy", "device"):
             get_storage(make_config("sb-%s-%s" % (layout, engine))).delete_all()
     yield
 
 
-@pytest.mark.parametrize("engine", ["numpy", "tpu"])
+@pytest.mark.parametrize("engine", ["numpy", "device"])
 @pytest.mark.parametrize("layout", ["classic", "blocked", "minimizer"])
 @pytest.mark.parametrize("threshold", [1.0, 0.5])
 def test_search_batch_matches_search(layout, engine, threshold):
@@ -105,7 +103,7 @@ def test_search_batch_score_falls_back():
     assert "score" in got[0][0]
 
 
-@pytest.mark.parametrize("engine", ["numpy", "tpu"])
+@pytest.mark.parametrize("engine", ["numpy", "device"])
 @pytest.mark.parametrize("layout", ["classic", "minimizer"])
 def test_search_batch_scored_matches_search(layout, engine):
     """Batched scoring (VERDICT r2 item 5): one counts dispatch, then a

@@ -21,7 +21,7 @@ def _mk_index(tmp_path, window=19, n=6, glen=600, k=31):
     cfg = {
         "storage-engine": "bigsi-tpu",
         "storage-config": {"filename": str(tmp_path / "idx")},
-        "k": k, "m": 1 << 18, "h": 3, "engine": "tpu",
+        "k": k, "m": 1 << 18, "h": 3, "engine": "device",
         "layout": "minimizer", "tile-rows": 16, "minimizer-window": window,
     }
     blooms = [BIGSI.bloom(cfg, seq_to_kmers(g, k)) for g in genomes]

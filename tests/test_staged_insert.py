@@ -115,7 +115,7 @@ def test_side_shard_survives_reopen(tmp_path):
     assert "late" in [h["sample_name"] for h in reopened.search(s, 1.0)]
 
 
-@pytest.mark.parametrize("engine", ["numpy", "tpu"])
+@pytest.mark.parametrize("engine", ["numpy", "device"])
 def test_staged_insert_engines_agree(tmp_path, engine):
     rng = random.Random(11)
     cfg = _config(tmp_path, layout="minimizer", **{"tile-rows": 16})

@@ -63,7 +63,7 @@ def test_verified_identical_to_classic_all_engines(tmp_path):
         "slot_scheme": 3, "run_len": 20,
     }
     queries = [s[40:260] for s in seqs[:6]] + [s[100:300] for s in seqs[6:]]
-    vr_dev = BIGSI(dict(ver_cfg, engine="tpu"))
+    vr_dev = BIGSI(dict(ver_cfg, engine="device"))
     assert type(vr_dev.screen_engine).__name__ == "DeviceEngine"
     assert vr_dev.screen_engine.supports_kmer_batch()  # fused screen
     for t in (1.0, 0.7, 0.5):
@@ -285,14 +285,14 @@ def test_verified_index_over_http(tmp_path):
 
 
 def test_device_verifier_engaged_and_identical(tmp_path, monkeypatch):
-    """VERDICT r4 next-1: with engine=tpu the verify pass runs on the
-    device (DeviceVerifier over the HBM-staged classic matrix) and the
+    """With engine=device the verify pass runs on the device
+    (DeviceVerifier over the device-staged classic matrix) and the
     result dicts stay identical to a pure classic index."""
     rng = np.random.default_rng(91)
     seqs = _dataset(rng)
     names = ["g%d" % i for i in range(6)] + ["m%d" % i for i in range(6)]
     cl, vr, classic_cfg, ver_cfg = _build_pair(tmp_path, seqs, names)
-    vr_dev = BIGSI(dict(ver_cfg, engine="tpu"))
+    vr_dev = BIGSI(dict(ver_cfg, engine="device"))
     assert vr_dev.verifier is not None, "auto verify-device did not engage"
     calls = {"n": 0}
     orig = vr_dev.verifier.counts_async
@@ -310,7 +310,7 @@ def test_device_verifier_engaged_and_identical(tmp_path, monkeypatch):
             [cl.search(q, t) for q in queries]
     assert calls["n"] > 0, "device verifier never used"
     # explicit opt-out falls back to the host pass
-    vr_off = BIGSI(dict(ver_cfg, engine="tpu", **{"verify-device": False}))
+    vr_off = BIGSI(dict(ver_cfg, engine="device", **{"verify-device": False}))
     assert vr_off.verifier is None
     assert vr_off.search_batch(queries, threshold=0.7) == \
         cl.search_batch(queries, threshold=0.7)
@@ -323,7 +323,7 @@ def test_device_verifier_refreshes_on_compact(tmp_path):
     seqs = _dataset(rng, n=3)
     names = ["s%d" % i for i in range(len(seqs))]
     cl, vr, classic_cfg, ver_cfg = _build_pair(tmp_path, seqs, names)
-    vd = BIGSI(dict(ver_cfg, engine="tpu"))
+    vd = BIGSI(dict(ver_cfg, engine="device"))
     assert vd.verifier is not None
     old_matrix = vd.verifier.matrix
     newbie = "".join(BASES[i] for i in rng.integers(0, 4, 200))
